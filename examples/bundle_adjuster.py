@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Shim: the bundle adjuster CLI lives in the installed package.
 
-    python -m skeres_tpu.cli.bundle_adjuster [flags]
+    python -m skeres.cli.bundle_adjuster [flags]
 """
 
-from skeres_tpu.cli.bundle_adjuster import main
+from skeres.cli.bundle_adjuster import main
 
 if __name__ == "__main__":
     main()

@@ -18,9 +18,9 @@ import argparse
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
 
 
 def make_image(side: int) -> np.ndarray:

@@ -12,9 +12,9 @@ vertices the "cameras"), so DENSE_SCHUR applies.
 import jax.numpy as jnp
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
 
 
 def main(num_points: int = 100, num_segments: int = 12, seed: int = 5):

@@ -6,8 +6,8 @@ Counterpart of the reference lineage's ``examples/helloworld.cc`` /
 the residual is a pure JAX function and the Jacobian comes from jvp.
 """
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
+import skeres as st
+from skeres.core.options import SolverOptions
 
 
 def main():

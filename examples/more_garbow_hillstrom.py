@@ -16,10 +16,10 @@ import argparse
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
-from skeres_tpu.models.mgh import PROBLEMS
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
+from skeres.models.mgh import PROBLEMS
 
 
 def solve(prob):

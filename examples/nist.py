@@ -19,10 +19,10 @@ import math
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
-from skeres_tpu.io.nist_strd import PROBLEMS
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
+from skeres.io.nist_strd import PROBLEMS
 
 
 def fit(prob, b0, max_iterations=1500):

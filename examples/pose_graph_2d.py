@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Shim: see `python -m skeres_tpu.cli.pose_graph_2d`."""
+"""Shim: see `python -m skeres.cli.pose_graph_2d`."""
 
-from skeres_tpu.cli.pose_graph_2d import main
+from skeres.cli.pose_graph_2d import main
 
 if __name__ == "__main__":
     main()

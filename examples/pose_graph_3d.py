@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Shim: see `python -m skeres_tpu.cli.pose_graph_3d`."""
+"""Shim: see `python -m skeres.cli.pose_graph_3d`."""
 
-from skeres_tpu.cli.pose_graph_3d import main
+from skeres.cli.pose_graph_3d import main
 
 if __name__ == "__main__":
     main()

@@ -18,8 +18,8 @@ import argparse
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
+import skeres as st
+from skeres.core.options import SolverOptions
 
 CORRIDOR_LENGTH = 30.0
 STEP = 1.0

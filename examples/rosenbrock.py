@@ -16,12 +16,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from skeres_tpu.core.gradient_problem import (
+from skeres.core.gradient_problem import (
     GradientProblem,
     solve_gradient_problem,
 )
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import MinimizerType
+from skeres.core.options import SolverOptions
+from skeres.core.types import MinimizerType
 
 
 def rosenbrock(p):

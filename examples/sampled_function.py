@@ -11,9 +11,9 @@ usable as a residual, and the solver finds the minimum between samples.
 import jax.numpy as jnp
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.ops.interpolation import CubicInterpolator
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.ops.interpolation import CubicInterpolator
 
 
 def main():

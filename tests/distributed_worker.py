@@ -39,8 +39,8 @@ from jax.sharding import Mesh  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from skeres_tpu.core.evaluator import Evaluator  # noqa: E402
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal  # noqa: E402
+from skeres.core.evaluator import Evaluator  # noqa: E402
+from skeres.io.bal import build_bal_problem, synthetic_bal  # noqa: E402
 
 bal = synthetic_bal(num_cameras=4, num_points=30, observations_per_point=3)
 problem, _, _ = build_bal_problem(bal)
@@ -77,12 +77,12 @@ np.testing.assert_allclose(diag_local, ref["diag"], rtol=1e-10)
 print(f"proc {proc_id}: OK cost={float(cost):.6e}")
 
 # -- full LM solve: trajectory must equal the single-process reference ----
-# (VERDICT r2 next #3: extend the smoke to a short full solve). Exercises
+# (the smoke extended to a short full solve). Exercises
 # the sharded evaluator + sharded windowed reductions + sharded Schur PCG
 # across two REAL processes, not just one eval.
-import skeres_tpu as st  # noqa: E402
-from skeres_tpu.core.options import SolverOptions  # noqa: E402
-from skeres_tpu.core.types import LinearSolverType, PreconditionerType  # noqa: E402
+import skeres as st  # noqa: E402
+from skeres.core.options import SolverOptions  # noqa: E402
+from skeres.core.types import LinearSolverType, PreconditionerType  # noqa: E402
 
 bal2 = synthetic_bal(num_cameras=4, num_points=30, observations_per_point=3)
 problem2, _, _ = build_bal_problem(bal2)

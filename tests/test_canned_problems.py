@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
 
 SOLVERS = [
     LinearSolverType.DENSE_NORMAL_CHOLESKY,
@@ -144,10 +144,10 @@ def test_damped_step_matches_normal_equations():
     radius = 7.5
     for solver in SOLVERS:
         problem, cams, pts, _ = _ba_structured_problem()
-        from skeres_tpu.core.evaluator import Evaluator
-        from skeres_tpu.core.minimizer import TrustRegionMinimizer
-        from skeres_tpu.core.schur import SchurSolver
-        from skeres_tpu.core.summary import Summary
+        from skeres.core.evaluator import Evaluator
+        from skeres.core.minimizer import TrustRegionMinimizer
+        from skeres.core.schur import SchurSolver
+        from skeres.core.summary import Summary
 
         program = problem.compile()
         ev = Evaluator(program)

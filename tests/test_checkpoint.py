@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import TerminationType
-from skeres_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import TerminationType
+from skeres.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
 def _curve_problem():

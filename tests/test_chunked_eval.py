@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.evaluator import Evaluator
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+import skeres as st
+from skeres.core.evaluator import Evaluator
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
+from skeres.io.bal import build_bal_problem, synthetic_bal
 
 
 def _bal_problem():
@@ -68,9 +68,9 @@ def test_padded_layouts_survive_chunk_padding():
     letting block 0's apparent count trip the waste gates (regression:
     bench_venice with --chunk silently lost BOTH fast paths)."""
     import jax
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=6, num_points=90, observations_per_point=3)
     problem, _, _ = build_bal_problem(bal)
@@ -89,7 +89,7 @@ def test_padded_layouts_survive_chunk_padding():
 
     # and the solves still match the unchunked evaluator's
     ev0 = Evaluator(program)
-    from skeres_tpu.core.linear_solvers import lm_diagonal
+    from skeres.core.linear_solvers import lm_diagonal
 
     def damped(ev_, solver):
         state = program.initial_state(ev_.dtype)

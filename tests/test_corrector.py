@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from skeres_tpu.ops import loss as L
-from skeres_tpu.ops.corrector import apply_loss, corrector_coefficients
+from skeres.ops import loss as L
+from skeres.ops.corrector import apply_loss, corrector_coefficients
 
 RNG = np.random.default_rng(7)
 

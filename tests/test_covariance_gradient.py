@@ -7,14 +7,14 @@ small-system oracle) and ``gradient_problem_solver_test.cc`` (Rosenbrock).
 import jax.numpy as jnp
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.covariance import Covariance, CovarianceOptions
-from skeres_tpu.core.gradient_problem import (
+import skeres as st
+from skeres.core.covariance import Covariance, CovarianceOptions
+from skeres.core.gradient_problem import (
     GradientProblem,
     solve_gradient_problem,
 )
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import TerminationType
+from skeres.core.options import SolverOptions
+from skeres.core.types import TerminationType
 
 
 def test_covariance_linear_system_oracle():
@@ -91,12 +91,12 @@ def test_gradient_problem_on_sphere_manifold():
 
 def test_covariance_schur_complement_matches_dense_svd():
     """SCHUR_COMPLEMENT covariance (block inverse through the reduced
-    camera system, never forming the full J^T J — the TPU-native
+    camera system, never forming the full J^T J — the batched
     counterpart of [ceres: covariance_impl.cc] SPARSE_QR on BA structure)
     must reproduce the DENSE_SVD path on every block-pair type:
     camera-camera, camera-point, point-point (same and distinct points)."""
-    from skeres_tpu.core.types import CovarianceAlgorithmType, LinearSolverType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.types import CovarianceAlgorithmType, LinearSolverType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=5, num_points=30, observations_per_point=4)
     problem, cameras, points = build_bal_problem(bal)
@@ -152,8 +152,8 @@ def test_covariance_schur_singular_point_block_returns_false():
     SCHUR_COMPLEMENT compute() must return False cleanly (reference:
     Covariance::Compute returning false on rank deficiency), not crash in
     the SVD or hand back garbage point blocks."""
-    from skeres_tpu.core.types import CovarianceAlgorithmType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.types import CovarianceAlgorithmType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=4, num_points=12, observations_per_point=1)
     problem, cameras, points = build_bal_problem(bal)
@@ -173,7 +173,7 @@ def test_covariance_apply_loss_function_false():
     the covariance from the UNWEIGHTED Jacobians: with a robust loss on
     the problem, it equals the covariance of the identical loss-free
     problem; with the default True it differs."""
-    from skeres_tpu.ops.loss import CauchyLoss
+    from skeres.ops.loss import CauchyLoss
 
     rng = np.random.default_rng(7)
     a_mat = rng.normal(size=(8, 3))

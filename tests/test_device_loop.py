@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
+from skeres.io.bal import build_bal_problem, synthetic_bal
 
 
 @pytest.fixture(scope="module")
@@ -34,6 +34,35 @@ def test_device_loop_matches_host_loop(bal):
     np.testing.assert_allclose(s_dev.initial_cost, s_host.initial_cost, rtol=1e-12)
     np.testing.assert_allclose(s_dev.final_cost, s_host.final_cost, rtol=1e-6)
     # identical formulas -> identical accept/reject trajectory
+    assert s_dev.num_successful_steps == s_host.num_successful_steps
+    np.testing.assert_allclose(cams_dev, cams_host, rtol=1e-6, atol=1e-8)
+
+
+def test_device_loop_padded_layout_matches_host_loop(bal):
+    """With the sort threshold at 0 the camera-padded layout is built even
+    for this small problem, and the device loop runs its consumers inside
+    lax.while_loop: the f64 trajectory must match the host loop's."""
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+
+    problem, _, _ = build_bal_problem(bal)
+    assert SchurSolver(Evaluator(problem.compile()),
+                       sort_threshold=0).sorted_info
+
+    def solve(device_loop):
+        problem, cams, _ = build_bal_problem(bal)
+        options = SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR,
+            max_num_iterations=25,
+            use_device_loop=device_loop,
+            device_loop_chunk_iterations=8,
+            jacobian_sort_threshold=0,
+        )
+        return st.solve(options, problem), cams.values.copy()
+
+    (s_host, cams_host), (s_dev, cams_dev) = solve(False), solve(True)
+    assert s_dev.termination_type == TerminationType.CONVERGENCE, s_dev.message
+    np.testing.assert_allclose(s_dev.final_cost, s_host.final_cost, rtol=1e-6)
     assert s_dev.num_successful_steps == s_host.num_successful_steps
     np.testing.assert_allclose(cams_dev, cams_host, rtol=1e-6, atol=1e-8)
 
@@ -116,3 +145,56 @@ def test_inner_iterations_improve_bal(bal):
         problem2,
     )
     assert summary.final_cost <= base.final_cost * 1.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_padded_layout_device_loop_matches_host_loop_on_gpu(gpu, dtype):
+    """At 600 cameras / 120k observations the camera-padded layout
+    (``SchurSolver.sorted_info``) is built, and the device loop runs it
+    inside its ``lax.while_loop``. In f64 its trajectory must match the
+    host loop's step for step; in f32 the two programs sum in different
+    orders, trajectories separate after the first step, and only the
+    final cost is compared."""
+    import jax.numpy as jnp
+
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+
+    bal = synthetic_bal(
+        num_cameras=600, num_points=30_000, observations_per_point=4
+    )
+    problem, _, _ = build_bal_problem(bal)
+    assert SchurSolver(Evaluator(problem.compile())).sorted_info
+
+    def solve(device_loop):
+        problem, _, _ = build_bal_problem(bal)
+        options = SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR,
+            max_num_iterations=10,
+            use_device_loop=device_loop,
+            device_loop_chunk_iterations=10,
+            function_tolerance=0.0,
+            gradient_tolerance=0.0,
+            parameter_tolerance=0.0,
+            run_full_iteration_budget=True,
+            dtype=jnp.dtype(dtype),
+        )
+        return st.solve(options, problem)
+
+    s_host = solve(False)
+    s_dev = solve(True)
+    assert np.isfinite([it.cost for it in s_dev.iterations]).all()
+    assert s_dev.final_cost < 1e-3 * s_dev.initial_cost
+    if dtype == "float64":
+        # the loops record different costs for rejected steps (the host
+        # loop the candidate's, the device loop the kept one), so compare
+        # the accept/reject sequence and the accepted costs
+        acc = [it.step_is_successful for it in s_host.iterations]
+        assert [it.step_is_successful for it in s_dev.iterations] == acc
+        host = [it.cost for it, a in zip(s_host.iterations, acc) if a]
+        dev = [it.cost for it, a in zip(s_dev.iterations, acc) if a]
+        np.testing.assert_allclose(dev, host, rtol=1e-9)
+    else:
+        np.testing.assert_allclose(s_dev.final_cost, s_host.final_cost,
+                                   rtol=1e-3)

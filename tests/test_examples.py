@@ -36,7 +36,7 @@ def test_denoising_reduces_noise_preserves_edges(monkeypatch):
 
 def test_ellipse_approximation_converges():
     from examples.ellipse_approximation import main
-    from skeres_tpu.core.types import TerminationType
+    from skeres.core.types import TerminationType
 
     summary = main(num_points=60, num_segments=10)
     assert summary.termination_type == TerminationType.CONVERGENCE

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
-from skeres_tpu.core.explicit_schur import ExplicitSchurPlan
+from skeres.core.explicit_schur import ExplicitSchurPlan
 
 requires_multidevice = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
@@ -138,7 +138,7 @@ def test_sharded_plan_small_shards_and_empty():
 
 
 def test_chunked_assembly_bounded_and_correct():
-    """Standalone-jit memory sanity (VERDICT r3 weak #1): the pair-product
+    """Standalone-jit memory sanity: the pair-product
     pipeline streams in byte-budgeted chunks, so compiling the assembly
     ALONE must not materialize intermediates far beyond the (by-design)
     pair-value table itself; and a tiny chunk budget must not change the
@@ -181,36 +181,29 @@ def test_chunked_assembly_bounded_and_correct():
 
 
 @pytest.mark.parametrize("seed", [1, 4])
-def test_pair_product_kernel_matches_einsum(seed):
-    """The points-on-lanes Pallas pair-product kernel (interpret mode on
-    CPU) must reproduce the XLA einsum path's unique-pair table and dense
-    off-diagonal exactly (same arithmetic, different layout)."""
+def test_pair_values_match_oracle(seed):
+    """The XLA pair-value path (chunked so several lax.map chunks run)
+    reduced and gather-built into the dense off-diagonal must match the
+    brute-force oracle."""
     pt, cam, nv, a, cinv, nc, npts = _random_case(seed, num_points=23)
-
-    def offdiag(use_kernel):
-        plan = ExplicitSchurPlan(
-            cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
-            f_size=F, e_size=E, n_valid=nv, pad_waste=100.0,
-        )
-        plan.use_pair_kernel = use_kernel
-        return _plan_offdiag(plan, a, cinv)
-
-    got = offdiag(True)
-    want = offdiag(False)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    # and against the oracle
+    plan = ExplicitSchurPlan(
+        cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
+        f_size=F, e_size=E, n_valid=nv, pad_waste=100.0,
+    )
+    plan.chunk_points = 8
+    got = _plan_offdiag(plan, a, cinv)
     oracle = _oracle_offdiag(pt, cam, nv, a, cinv, nc)
     np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
 
 
-# -- Summary.schur_complement_path surfacing (VERDICT r4 weak #6) -------------
+# -- Summary.schur_complement_path surfacing -----------------------------------
 
 
 def _solve_bal(**opt_kwargs):
-    import skeres_tpu as st
-    from skeres_tpu.core.options import SolverOptions
-    from skeres_tpu.core.types import LinearSolverType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    import skeres as st
+    from skeres.core.options import SolverOptions
+    from skeres.core.types import LinearSolverType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=6, num_points=50, observations_per_point=3)
     problem, _, _ = build_bal_problem(bal)
@@ -222,7 +215,7 @@ def _solve_bal(**opt_kwargs):
 
 
 def test_schur_path_explicit_reported():
-    from skeres_tpu.core.types import LinearSolverType
+    from skeres.core.types import LinearSolverType
 
     s = _solve_bal(
         linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
@@ -236,7 +229,7 @@ def test_schur_path_gate_rejection_reported():
     """Force the size gate to reject the wanted explicit plan: the path
     string must say so (and name the reason) instead of silently running
     the implicit fallback."""
-    from skeres_tpu.core.types import LinearSolverType
+    from skeres.core.types import LinearSolverType
 
     s = _solve_bal(
         linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
@@ -247,7 +240,7 @@ def test_schur_path_gate_rejection_reported():
 
 
 def test_schur_path_dense_small_problem():
-    from skeres_tpu.core.types import LinearSolverType
+    from skeres.core.types import LinearSolverType
 
     s = _solve_bal(linear_solver_type=LinearSolverType.DENSE_SCHUR)
     # small problems take the dense-W einsum path; no gate string
@@ -262,9 +255,9 @@ def test_direct_grid_build_matches_flat_path():
     import jax
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=9, num_points=80, observations_per_point=4)
     problem, _, _ = build_bal_problem(bal)
@@ -297,9 +290,9 @@ def test_reshape_grid_with_chunk_pad_tail():
     problem's grid."""
     import jax
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=9, num_points=90, observations_per_point=4)
 

@@ -1,50 +1,64 @@
-"""Tests for the TPU kernel layer: Pallas Cholesky (interpret mode on
-CPU), segment-reduce plans, and closed-form small SPD inverses."""
+"""Tests for the kernel layer: the reduced-camera-system Cholesky solve,
+segment-reduce plans, and closed-form small SPD inverses."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from skeres_tpu.ops.pallas.cholesky import (
-    blocked_chol_solve,
-    blocked_cholesky_factor,
-    chol_solve,
-    cholesky_inverse_factor,
-)
-from skeres_tpu.ops.segment_reduce import apply_reduce_plan, build_reduce_plan
-from skeres_tpu.ops.small_inverse import batched_spd_inverse
+from skeres.core.schur import SchurSolver
+from skeres.ops.segment_reduce import apply_reduce_plan, build_reduce_plan
+from skeres.ops.small_inverse import batched_spd_inverse
 
 
-@pytest.mark.parametrize("n", [5, 37, 128, 300])
-def test_pallas_cholesky_inverse_factor(n):
-    rng = np.random.default_rng(n)
+def _spd(n, seed):
+    rng = np.random.default_rng(seed)
     m = rng.standard_normal((n, n))
-    a = m @ m.T + n * np.eye(n)
-    linv = np.asarray(cholesky_inverse_factor(jnp.asarray(a, jnp.float32)))
-    l = np.linalg.cholesky(a)
-    np.testing.assert_allclose(linv, np.linalg.inv(l), rtol=0, atol=2e-4)
+    return m @ m.T + n * np.eye(n), rng.standard_normal(n)
 
-    b = rng.standard_normal(n)
-    x = np.asarray(
-        chol_solve(jnp.asarray(linv), jnp.asarray(b, jnp.float32))
+
+@pytest.mark.parametrize("n", [5, 37, 128, 300, 441, 515])
+def test_factor_solve_matches_numpy(n):
+    """The single Cholesky path (441 is BAL-49's S) against float64."""
+    a, b = _spd(n, n)
+    x = jax.jit(lambda a, b: SchurSolver._factor_solve(a, b)[0])(
+        jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32)
     )
-    np.testing.assert_allclose(x, np.linalg.solve(a, b), rtol=0, atol=5e-4)
+    want = np.linalg.solve(a, b)
+    np.testing.assert_allclose(np.asarray(x), want, rtol=0,
+                               atol=5e-4 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("n,panel", [(300, 128), (515, 128), (384, 384)])
-def test_blocked_cholesky_factor_solve(n, panel):
-    """Blocked HBM-scale path (small panels so interpret mode stays fast;
-    on TPU the default 1024 panel covers venice's ~16k S)."""
-    rng = np.random.default_rng(n)
-    m = rng.standard_normal((n, n))
-    a = m @ m.T + n * np.eye(n)
-    fac = blocked_cholesky_factor(jnp.asarray(a, jnp.float32), panel=panel)
-    l = np.asarray(fac.l)[:n, :n]
-    np.testing.assert_allclose(l, np.linalg.cholesky(a), rtol=0, atol=3e-3)
-    b = rng.standard_normal(n)
-    x = np.asarray(blocked_chol_solve(fac, jnp.asarray(b, jnp.float32)))
-    np.testing.assert_allclose(x, np.linalg.solve(a, b), rtol=0, atol=5e-4)
+def test_factor_solve_closure_reuses_the_factor():
+    """Mixed-precision refinement calls the returned solve closure on new
+    right-hand sides: it must solve with the same factor, and one f64
+    refinement step must shrink the f32 residual."""
+    a, b = _spd(200, 1)
+    a32 = jnp.asarray(a, jnp.float32)
+
+    def refine(a32, b32):
+        x, solve = SchurSolver._factor_solve(a32, b32)
+        r = b32.astype(jnp.float64) - a32.astype(jnp.float64) @ x.astype(
+            jnp.float64
+        )
+        return x, x + solve(r.astype(jnp.float32)), solve(2.0 * b32)
+
+    x, x_ref, x2 = jax.jit(refine)(a32, jnp.asarray(b, jnp.float32))
+    want = np.linalg.solve(a, b)
+    np.testing.assert_allclose(np.asarray(x2), 2.0 * np.asarray(x),
+                               rtol=1e-5, atol=1e-7)
+    err = np.linalg.norm(np.asarray(x, np.float64) - want)
+    err_ref = np.linalg.norm(np.asarray(x_ref, np.float64) - want)
+    assert err_ref <= err
+
+
+def test_factor_solve_non_pd_gives_nonfinite():
+    """The jitter ladder in solve_damped detects a failed factor by a
+    non-finite solution."""
+    a = np.diag([1.0, -1.0, 2.0])
+    x, _ = SchurSolver._factor_solve(jnp.asarray(a, jnp.float32),
+                                     jnp.ones(3, jnp.float32))
+    assert not np.all(np.isfinite(np.asarray(x)))
 
 
 @pytest.mark.parametrize("kind_cfg", [
@@ -104,7 +118,7 @@ def test_batched_spd_inverse(e):
     ("pcfe,peg->pcfg", (7, 5, 9, 3), (7, 3, 9)),
 ])
 def test_vpu_einsum_matches_einsum(spec, sa, sb):
-    from skeres_tpu.ops.small_einsum import vpu_einsum
+    from skeres.ops.small_einsum import vpu_einsum
 
     rng = np.random.default_rng(3)
     a = jnp.asarray(rng.standard_normal(sa))

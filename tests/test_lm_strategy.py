@@ -6,10 +6,10 @@ accept/reject trajectory, independent of end-to-end convergence."""
 import jax.numpy as jnp
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.linear_solvers import lm_diagonal
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
+import skeres as st
+from skeres.core.linear_solvers import lm_diagonal
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
 
 
 def test_lm_diagonal_clamping():

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from skeres_tpu.ops import loss as L
+from skeres.ops import loss as L
 
 LOSSES = [
     ("trivial", L.TrivialLoss()),

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from skeres_tpu.models import manifolds as M
+from skeres.models import manifolds as M
 
 RNG = np.random.default_rng(3)
 

@@ -6,17 +6,17 @@ Counterpart of the reference lineage's ``examples/more_garbow_hillstrom.cc``
 and the NIST-style certification in ``system_test.cc``: every test problem
 must reach a certified minimum from the paper's standard starting point.
 The function registry (starts, certified F* values including documented
-local minima, per-problem tolerances) lives in ``skeres_tpu/models/mgh.py``
+local minima, per-problem tolerances) lives in ``skeres/models/mgh.py``
 and is shared with the ``examples/more_garbow_hillstrom.py`` scoreboard.
 """
 
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
-from skeres_tpu.models.mgh import PROBLEMS
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
+from skeres.models.mgh import PROBLEMS
 
 
 def _solve(prob):

@@ -7,7 +7,7 @@ points and require the reached sum-of-squared-residuals to match the
 certified value. Problems whose (large, measured) datasets cannot be
 embedded are gated on ``data/nist/*.dat`` (DRIVER_REQUESTS.md) and skip
 with a clear message until staged; their models/starts/certified values
-are already registered (skeres_tpu/io/nist_strd.py).
+are already registered (skeres/io/nist_strd.py).
 
 Hard starting points that LM cannot certify from are kept VISIBLE as
 xfail entries with analysis, mirroring how ``nist.cc`` reports per-start
@@ -17,11 +17,11 @@ success counts rather than hiding failures.
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType
 
-from skeres_tpu.io.nist_strd import EMBEDDED, FILE_GATED, PROBLEMS
+from skeres.io.nist_strd import EMBEDDED, FILE_GATED, PROBLEMS
 
 # (problem, start_index) pairs where the certified minimum is NOT reached
 # from that certified start, with the reason. Mirrors nist.cc's scoreboard:

@@ -4,11 +4,11 @@
 
 import numpy as np
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.ordering import compute_schur_ordering, independent_groups
-from skeres_tpu.core.types import LinearSolverType, TerminationType
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.ordering import compute_schur_ordering, independent_groups
+from skeres.core.types import LinearSolverType, TerminationType
+from skeres.io.bal import build_bal_problem, synthetic_bal
 
 
 def test_bal_points_discovered_as_independent():

@@ -8,10 +8,10 @@ import tempfile
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
-from skeres_tpu.io.g2o import (
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
+from skeres.io.g2o import (
     PoseGraph2D,
     build_pose_graph_problem,
     load_g2o,
@@ -153,8 +153,8 @@ def test_pose_graph_3d_sphere_converges(sphere_graph):
 
 
 def test_pose_graph_3d_gradient_check(sphere_graph):
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.gradient_checker import check_program_gradients
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.gradient_checker import check_program_gradients
 
     graph = synthetic_sphere(num_poses=12, loops_every=5)
     problem, _ = build_pose_graph_problem(graph)

@@ -5,10 +5,10 @@ SURVEY.md §5.4)."""
 import jax.numpy as jnp
 import numpy as np
 
-from skeres_tpu.core.callbacks import EvaluationCallback, StateUpdatingCallback
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.problem import Problem
-from skeres_tpu.core.solver import solve
+from skeres.core.callbacks import EvaluationCallback, StateUpdatingCallback
+from skeres.core.options import SolverOptions
+from skeres.core.problem import Problem
+from skeres.core.solver import solve
 
 
 def _quad(params, data):
@@ -135,7 +135,7 @@ def test_evaluate_residual_block_subset():
     """Problem.evaluate(residual_blocks=[...]) restricts the evaluation to
     the chosen subset (reference: EvaluateOptions::residual_blocks), and
     apply_loss_function=False drops the robustifier."""
-    from skeres_tpu.ops.loss import CauchyLoss
+    from skeres.ops.loss import CauchyLoss
 
     p = Problem()
     x = p.add_parameter_block([3.0])
@@ -194,7 +194,7 @@ def test_numeric_diff_methods():
 
     # unit-level accuracy: f32 central at h=1e-6 is cancellation-dominated,
     # ridders from h=1e-2 recovers ~full f32 precision
-    from skeres_tpu.core.gradient_checker import (
+    from skeres.core.gradient_checker import (
         numeric_jacobian,
         ridders_jacobian,
     )
@@ -231,8 +231,8 @@ def test_jacobian_diff_modes_agree():
     """forward (T jvps, the reference's Jet layout) and reverse (m vjps)
     Jacobian construction must produce the same solve trajectory; auto
     picks reverse for wide blocks (BA: m=2 vs T=12)."""
-    from skeres_tpu.core.types import LinearSolverType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.types import LinearSolverType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=5, num_points=40,
                         observations_per_point=3)

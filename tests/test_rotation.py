@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from skeres_tpu.ops import rotation as rot
+from skeres.ops import rotation as rot
 
 RNG = np.random.default_rng(0)
 

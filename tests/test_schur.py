@@ -10,14 +10,14 @@ import jax
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import (
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import (
     LinearSolverType,
     PreconditionerType,
     TerminationType,
 )
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+from skeres.io.bal import build_bal_problem, synthetic_bal
 
 
 def _solve(linear_solver, bal, **kw):
@@ -72,9 +72,9 @@ def test_schur_step_equals_dense_step(small_bal):
     Mirror of the reference's schur_eliminator_test strategy."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.linear_solvers import solve_dense_normal_cholesky
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.linear_solvers import solve_dense_normal_cholesky
+    from skeres.core.schur import SchurSolver
 
     problem, cameras, points = build_bal_problem(small_bal)
     program = problem.compile()
@@ -102,9 +102,9 @@ def test_iterative_schur_matvec_matches_dense_s(small_bal):
     """Implicit S matvec == materialized dense S product (random vectors)."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.linear_solvers import lm_diagonal
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.linear_solvers import lm_diagonal
+    from skeres.core.schur import SchurSolver
 
     problem, cameras, points = build_bal_problem(small_bal)
     program = problem.compile()
@@ -143,8 +143,8 @@ def test_iterative_schur_matvec_matches_dense_s(small_bal):
 
 
 def test_gradient_checker_on_snavely(small_bal):
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.gradient_checker import check_program_gradients
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.gradient_checker import check_program_gradients
 
     problem, _, _ = build_bal_problem(small_bal)
     program = problem.compile()
@@ -157,10 +157,10 @@ def test_sorted_camera_layout_matches_unsorted():
     """The camera-sorted matvec layout (sort_threshold forces it on) must
     reproduce the default path bit-tolerantly: same damped solve, same
     SCHUR_JACOBI blocks."""
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.linear_solvers import lm_diagonal
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.linear_solvers import lm_diagonal
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=6, num_points=80, observations_per_point=3)
     problem, _, _ = build_bal_problem(bal)
@@ -243,7 +243,7 @@ def test_trust_region_problem_dumps(tmp_path, small_bal):
 
 
 def test_trust_region_dump_console(capsys, small_bal):
-    from skeres_tpu.core.types import DumpFormatType
+    from skeres.core.types import DumpFormatType
 
     problem, _, _ = build_bal_problem(small_bal)
     options = SolverOptions(
@@ -260,9 +260,9 @@ def test_trust_region_dump_console(capsys, small_bal):
 def _explicit_vs_probe(problem, check_iterative=True):
     """Build S via the explicit pair-product plan and via the implicit
     column probe on the same assembly; they must agree to fp tolerance."""
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.linear_solvers import lm_diagonal
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.linear_solvers import lm_diagonal
+    from skeres.core.schur import SchurSolver
 
     program = problem.compile()
     ev = Evaluator(program)
@@ -345,8 +345,8 @@ def test_dense_schur_factor_failure_cg_fallback(small_bal):
     step: the DENSE_SCHUR path falls back to PCG on the explicit S and
     returns the same solution (the reference wastes the LM step on
     LinearSolverFailure; we recover it)."""
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
 
     problem, _, _ = build_bal_problem(small_bal)
     program = problem.compile()
@@ -394,9 +394,9 @@ def test_factor_failure_jittered_refactor_recovers_step():
     iteration count recording the retry."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(
         num_cameras=6, num_points=60, observations_per_point=4
@@ -439,14 +439,14 @@ def test_cluster_jacobi_preconditioner():
     fewer CG iterations — its blocks subsume SCHUR_JACOBI's, so the
     preconditioned system is strictly better conditioned. cluster_size <
     num_cameras so the test exercises genuine multi-cluster blocks."""
-    import skeres_tpu as st
-    from skeres_tpu.core.options import SolverOptions
-    from skeres_tpu.core.types import (
+    import skeres as st
+    from skeres.core.options import SolverOptions
+    from skeres.core.types import (
         LinearSolverType,
         PreconditionerType,
         TerminationType,
     )
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(
         num_cameras=24, num_points=200, observations_per_point=4
@@ -484,9 +484,9 @@ def test_cluster_jacobi_downgrades_without_structure():
     group at all here."""
     import jax.numpy as jnp
 
-    import skeres_tpu as st
-    from skeres_tpu.core.options import SolverOptions
-    from skeres_tpu.core.types import LinearSolverType, PreconditionerType
+    import skeres as st
+    from skeres.core.options import SolverOptions
+    from skeres.core.types import LinearSolverType, PreconditionerType
 
     problem = st.Problem()
     x = problem.add_parameter_block([2.0, -1.0])
@@ -513,9 +513,9 @@ def test_jtj_quadratic_padded_matches_generic():
     path."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=7, num_points=60, observations_per_point=4)
     problem, _, _ = build_bal_problem(bal)
@@ -544,9 +544,9 @@ def test_padded_gradient_diag_and_scale_match_generic():
     padded space — must equal prepare() over pre-scaled rows."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=9, num_points=70, observations_per_point=3)
     problem, _, _ = build_bal_problem(bal)
@@ -568,7 +568,7 @@ def test_padded_gradient_diag_and_scale_match_generic():
     # prep over reused UNSCALED copies (consumers conjugate with the
     # scale vectors) must produce the same solver quantities as prep over
     # re-placed pre-scaled rows
-    from skeres_tpu.core.linear_solvers import lm_diagonal
+    from skeres.core.linear_solvers import lm_diagonal
 
     scale = 1.0 / (1.0 + jnp.sqrt(jnp.maximum(d0, 0.0)))
     data = srt.solver_data(blocks)
@@ -606,10 +606,10 @@ def test_padded_gradient_diag_and_scale_match_generic():
 def test_padded_linearize_end_to_end_trajectory():
     """Full solves with the padded-linearize path (sort_threshold forced
     on) and the generic path must produce the same trajectory."""
-    import skeres_tpu as st
-    from skeres_tpu.core.options import SolverOptions
-    from skeres_tpu.core.types import LinearSolverType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    import skeres as st
+    from skeres.core.options import SolverOptions
+    from skeres.core.types import LinearSolverType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=8, num_points=90, observations_per_point=3)
 
@@ -641,9 +641,9 @@ def test_placed_dual_eval_matches_placement_gather():
     reductions."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     bal = synthetic_bal(num_cameras=7, num_points=60, observations_per_point=3)
     problem, _, _ = build_bal_problem(bal)
@@ -689,10 +689,10 @@ def test_placed_dual_eval_respects_constant_blocks_and_loss():
     free mask -> placed mask copy)."""
     import jax.numpy as jnp
 
-    from skeres_tpu.core.evaluator import Evaluator
-    from skeres_tpu.core.schur import SchurSolver
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
-    from skeres_tpu.ops.loss import HuberLoss
+    from skeres.core.evaluator import Evaluator
+    from skeres.core.schur import SchurSolver
+    from skeres.io.bal import build_bal_problem, synthetic_bal
+    from skeres.ops.loss import HuberLoss
 
     bal = synthetic_bal(num_cameras=6, num_points=50, observations_per_point=3)
     problem, cameras, _ = build_bal_problem(bal, loss=HuberLoss(1.0))

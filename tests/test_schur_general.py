@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.evaluator import Evaluator
-from skeres_tpu.core.minimizer import TrustRegionMinimizer
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.schur import SchurSolver
-from skeres_tpu.core.summary import Summary
-from skeres_tpu.core.types import LinearSolverType, TerminationType
+import skeres as st
+from skeres.core.evaluator import Evaluator
+from skeres.core.minimizer import TrustRegionMinimizer
+from skeres.core.options import SolverOptions
+from skeres.core.schur import SchurSolver
+from skeres.core.summary import Summary
+from skeres.core.types import LinearSolverType, TerminationType
 
 
 def _general_ba_problem(seed=11):

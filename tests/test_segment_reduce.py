@@ -5,7 +5,7 @@ against the generic gather plan, including the zero-value evaluator pad
 tail and the SPMD variant.
 
 Reference: the lock-guarded scatter in ``internal/ceres/
-block_jacobian_writer.cc`` that all of these replace on TPU.
+block_jacobian_writer.cc`` that all of these replace.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from skeres_tpu.ops.segment_reduce import (
+from skeres.ops.segment_reduce import (
     ReducePlan,
     ShardedReducePlan,
     apply_reduce_plan,

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import skeres_tpu as st
-from skeres_tpu.core.evaluator import Evaluator
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
-from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+import skeres as st
+from skeres.core.evaluator import Evaluator
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
+from skeres.io.bal import build_bal_problem, synthetic_bal
 
 
 requires_multidevice = pytest.mark.skipif(
@@ -87,8 +87,8 @@ def test_sharded_padded_matvec_matches_generic(mesh, bal):
     """The sharded camera-padded (gather-free) Schur path must agree with
     the sharded generic-plan path; exact same arithmetic per shard modulo
     reduction order, so tolerances are tight."""
-    from skeres_tpu.core.linear_solvers import lm_diagonal
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.linear_solvers import lm_diagonal
+    from skeres.core.schur import SchurSolver
 
     problem, _, _ = build_bal_problem(bal)
     program = problem.compile()
@@ -165,9 +165,9 @@ def test_sharded_explicit_s_matches_single_device(mesh, bal):
     """The flagship explicit-S assembly must produce the same reduced
     camera system under the mesh (per-shard pair products + hierarchical
     partial sums + one psum over the unique-pair table + replicated
-    straddle fixup) as on a single device (VERDICT r3 missing #1)."""
-    from skeres_tpu.core.linear_solvers import lm_diagonal
-    from skeres_tpu.core.schur import SchurSolver
+    straddle fixup) as on a single device."""
+    from skeres.core.linear_solvers import lm_diagonal
+    from skeres.core.schur import SchurSolver
 
     def build(mesh_arg):
         problem, _, _ = build_bal_problem(bal)
@@ -250,7 +250,7 @@ def test_sharded_padded_gradient_diag_matches_generic(mesh, bal):
     """gradient_and_diag_padded under a mesh (per-shard K-sums + one
     psum) must equal the generic sharded reductions, and the
     padded-space scaling must equal re-placing scaled rows."""
-    from skeres_tpu.core.schur import SchurSolver
+    from skeres.core.schur import SchurSolver
 
     problem, _, _ = build_bal_problem(bal)
     program = problem.compile()
@@ -267,7 +267,7 @@ def test_sharded_padded_gradient_diag_matches_generic(mesh, bal):
     np.testing.assert_allclose(np.asarray(g1), np.asarray(g0), rtol=1e-9)
     np.testing.assert_allclose(np.asarray(d1), np.asarray(d0), rtol=1e-9)
 
-    from skeres_tpu.core.linear_solvers import lm_diagonal
+    from skeres.core.linear_solvers import lm_diagonal
 
     scale = 1.0 / (1.0 + jnp.sqrt(jnp.maximum(d0, 0.0)))
     data = schur.solver_data(blocks)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import LinearSolverType, TerminationType
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import LinearSolverType, TerminationType
 
 
 def _solve_powell(linear_solver, **kw):
@@ -181,7 +181,7 @@ def test_bounds_projection():
 
 
 def test_callbacks_and_abort():
-    from skeres_tpu.core.types import CallbackReturnType
+    from skeres.core.types import CallbackReturnType
 
     problem, mc = _build_curve_problem(*_curve_data())
     seen = []
@@ -200,7 +200,7 @@ def test_callbacks_and_abort():
 
 
 def test_powell_dogleg():
-    from skeres_tpu.core.types import TrustRegionStrategyType
+    from skeres.core.types import TrustRegionStrategyType
 
     problem, summary, xs = _solve_powell(
         LinearSolverType.DENSE_NORMAL_CHOLESKY,
@@ -215,7 +215,7 @@ def test_powell_subspace_dogleg():
     ComputeSubspaceDoglegStep) must converge on Powell and, on a
     rejected-step trajectory (Rosenbrock), do no worse than traditional
     dogleg in iterations-to-converge class."""
-    from skeres_tpu.core.types import DoglegType, TrustRegionStrategyType
+    from skeres.core.types import DoglegType, TrustRegionStrategyType
 
     problem, summary, xs = _solve_powell(
         LinearSolverType.DENSE_NORMAL_CHOLESKY,
@@ -227,7 +227,7 @@ def test_powell_subspace_dogleg():
 
 
 def test_subspace_dogleg_rosenbrock_converges():
-    from skeres_tpu.core.types import DoglegType, TrustRegionStrategyType
+    from skeres.core.types import DoglegType, TrustRegionStrategyType
 
     problem = st.Problem()
     xy = problem.add_parameter_block([-1.2, 1.0])
@@ -254,7 +254,7 @@ def test_loss_function_wrapper_reset():
     """LossFunctionWrapper: swapping the wrapped loss between solves
     changes the NEXT solve (reference: loss_function.h; jit semantics
     documented on the class)."""
-    from skeres_tpu.ops.loss import HuberLoss, LossFunctionWrapper
+    from skeres.ops.loss import HuberLoss, LossFunctionWrapper
 
     wrapper = LossFunctionWrapper(HuberLoss(0.1))
 
@@ -282,7 +282,7 @@ def test_loss_function_wrapper_reset():
 
 
 def test_curve_fitting_line_search_lbfgs():
-    from skeres_tpu.core.types import MinimizerType
+    from skeres.core.types import MinimizerType
 
     x, y = _curve_data()
     problem, mc = _build_curve_problem(x, y)
@@ -385,7 +385,7 @@ def test_bounds_projected_line_search():
 def test_curve_fitting_line_search_dense_bfgs():
     """Dense BFGS direction (not the LBFGS alias) converges on curve
     fitting (reference: line_search_direction.cc BFGS)."""
-    from skeres_tpu.core.types import LineSearchDirectionType, MinimizerType
+    from skeres.core.types import LineSearchDirectionType, MinimizerType
 
     x, y = _curve_data()
     problem, mc = _build_curve_problem(x, y)
@@ -471,7 +471,7 @@ def test_pinned_and_disabled_jacobi_scaling():
     entirely. Both must stay consistent with the Schur solver's pre-scaled
     prep (regression: the host kept a stale scale while the prep used a
     fresh one) and converge to the same solution as the default."""
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     finals = {}
     for name, kw in [
@@ -509,7 +509,7 @@ def test_pinned_and_disabled_jacobi_scaling():
 
 def test_detailed_step_timings_off_same_result():
     """detailed_step_timings=False lets the solve/try dispatches pipeline
-    (throughput mode for network-attached chips); the trajectory must be
+    (throughput mode); the trajectory must be
     identical to the default."""
     finals = []
     for flag in (True, False):

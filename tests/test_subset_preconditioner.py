@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import skeres_tpu as st
-from skeres_tpu.core.options import SolverOptions
-from skeres_tpu.core.types import (
+import skeres as st
+from skeres.core.options import SolverOptions
+from skeres.core.types import (
     LinearSolverType,
     PreconditionerType,
     TerminationType,

@@ -23,7 +23,7 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ["JAX_PLATFORMS"] = "cpu"  # CPU-only by design
 
 
 def main():
@@ -42,7 +42,7 @@ def main():
     from scipy.optimize import least_squares
 
     import bench  # repo-root bench.py: numpy Snavely + sparsity pattern
-    from skeres_tpu.io.bal import synthetic_bal
+    from skeres.io.bal import synthetic_bal
 
     t0 = time.time()
     bal = synthetic_bal(

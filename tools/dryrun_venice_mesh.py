@@ -1,11 +1,10 @@
 #!/usr/bin/env python
-"""Sharded venice-path dryrun on the virtual CPU mesh (VERDICT r1 item #1
-multichip criterion): build a large synthetic BAL problem, shard it over 8
+"""Sharded venice-path dryrun on the virtual CPU mesh: build a large synthetic BAL problem, shard it over 8
 virtual devices, and execute ONE full sharded LM step (linearize + damped
 ITERATIVE_SCHUR solve + candidate eval) end-to-end.
 
-Scale is reduced from full venice (the box has 2 CPU cores; the point is
-that the sharded program COMPILES AND EXECUTES with the shard_map windowed
+Scale is reduced from full venice (the point is that the sharded
+program COMPILES AND EXECUTES with the shard_map windowed
 reductions at a venice-shaped problem, not CPU throughput).
 
     python tools/dryrun_venice_mesh.py --num_points 40000
@@ -24,9 +23,12 @@ if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8"
     ).strip()
+os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+from skeres.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
@@ -45,10 +47,10 @@ def main():
     import numpy as np
     from jax.sharding import Mesh
 
-    import skeres_tpu as st
-    from skeres_tpu.core.options import SolverOptions
-    from skeres_tpu.core.types import LinearSolverType, TerminationType
-    from skeres_tpu.io.bal import build_bal_problem, synthetic_bal
+    import skeres as st
+    from skeres.core.options import SolverOptions
+    from skeres.core.types import LinearSolverType, TerminationType
+    from skeres.io.bal import build_bal_problem, synthetic_bal
 
     t0 = time.time()
     bal = synthetic_bal(
